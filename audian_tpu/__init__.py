@@ -1,17 +1,17 @@
-"""audian-tpu: a TPU-native framework for interactive analysis of animal
+"""audian-tpu: a JAX framework for interactive analysis of animal
 vocalization recordings.
 
-A ground-up JAX/XLA/Pallas rebuild with the capabilities of the reference
+A ground-up JAX/XLA rebuild with the capabilities of the reference
 audian package (bendalab/audian): a lazy, chunked, demand-driven DSP dataflow
 graph over out-of-core audio (raw -> Butterworth filter -> envelope /
 spectrogram), plugin-extensible derived traces and analyzers, min/max pyramid
 decimation for overview rendering, region analysis/export, audio playback
 with heterodyne down-mixing, and batch CLIs -- all with the hot compute path
-on TPU.
+on the accelerator (a GPU).
 
 Layering (mirrors SURVEY.md section 1 of the rebuild plan):
 
-- ``audian_tpu.ops``       TPU kernels (SOS IIR, STFT, envelope, min/max, mix)
+- ``audian_tpu.ops``       device kernels (SOS IIR, STFT, envelope, min/max, mix)
 - ``audian_tpu.graph``     functional lazy trace DAG with halo folding
 - ``audian_tpu.data``      audio I/O, out-of-core loader, ``Data`` registry
 - ``audian_tpu.parallel``  device-mesh sharding (channel / chunk / sequence)
@@ -22,59 +22,41 @@ Layering (mirrors SURVEY.md section 1 of the rebuild plan):
 - ``audian_tpu.cli``       ``audian``, ``audian-compress``, ``songdetector``
 """
 
+import os
+from pathlib import Path
+
 from .version import __version__, __year__, audian_dirs
 
 __all__ = ["__version__", "__year__", "audian_dirs",
            "enable_compilation_cache"]
 
 
-def _tune_host_allocator():
-    """Keep large host buffers in the warm glibc arena.
-
-    On this VM class, first touch of never-before-mapped anonymous memory
-    runs ~100x slower than warm memory (measured ~30 MiB/s vs multiple
-    GiB/s), and glibc munmaps every free above M_MMAP_THRESHOLD — so each
-    fresh multi-hundred-MB decode/upload buffer would pay the fault cliff
-    again.  Raising the mmap and trim thresholds keeps freed big blocks in
-    the heap, where the pages stay resident and warm across reuse.
-    """
-    import ctypes
-    import sys
-
-    if not sys.platform.startswith("linux"):
-        return
-    try:
-        libc = ctypes.CDLL("libc.so.6")
-        libc.mallopt(-3, 1 << 30)  # M_MMAP_THRESHOLD
-        libc.mallopt(-1, 1 << 30)  # M_TRIM_THRESHOLD
-    except Exception:
-        pass
-
-
-_tune_host_allocator()
-
 _cache_enabled = False
 
+#: the persistent compilation cache's default directory: fixed and inside
+#: the checkout, so every later session of this checkout finds it
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parent.parent / ".jax_cache"
 
-def enable_compilation_cache(path=None):
-    """Enable JAX's persistent compilation cache in the audian-tpu user
-    cache directory.
 
-    First compilation of the interactive chain costs tens of seconds on
-    TPU; with the persistent cache every later session reuses it.  Called
-    automatically by :meth:`audian_tpu.data.Data.open` and the CLIs.
+def enable_compilation_cache():
+    """Enable JAX's persistent compilation cache and return its
+    directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it and no other
+    directory is set here; otherwise the cache lives in
+    :data:`DEFAULT_CACHE_DIR`.  With the cache every later session reuses
+    the chain's compiled programs.  Called automatically by
+    :meth:`audian_tpu.data.Data.open` and the CLIs.
     """
     global _cache_enabled
-    if _cache_enabled:
-        return
     import jax
 
-    if path is None:
-        path = audian_dirs.user_cache_path / "xla-cache"
-    try:
-        path.mkdir(parents=True, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", str(path))
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not _cache_enabled:
+        if not env:
+            DEFAULT_CACHE_DIR.mkdir(exist_ok=True)
+            jax.config.update("jax_compilation_cache_dir",
+                              str(DEFAULT_CACHE_DIR))
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
         _cache_enabled = True
-    except Exception:
-        pass
+    return Path(env) if env else DEFAULT_CACHE_DIR

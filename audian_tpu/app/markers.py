@@ -13,7 +13,6 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 __all__ = ["MarkerLabel", "MarkerData"]
 
@@ -116,6 +115,8 @@ class MarkerData:
             del getattr(self, key)[index]
 
     def data_frame(self):
+        import pandas as pd
+
         return pd.DataFrame({h: getattr(self, k)
                              for k, h in zip(self.keys, self.headers)})
 

@@ -1,6 +1,6 @@
 """Whole-recording min/max overview with persistent cache.
 
-TPU-native rebuild of the reference's ``CompressedData``
+Rebuild of the reference's ``CompressedData``
 (`src/audian/compresseddata.py:25-305`): the min/max pyramid over the whole
 (out-of-core) recording for the overview plot, computed in the background,
 persisted either next to the data as ``<stem>-fulltrace.wav`` or in a
@@ -15,7 +15,7 @@ shared array (`compresseddata.py:104-122`):
   for out-of-core single files;
 - the in-memory reshape-reduce for short recordings;
 - optionally the device minmax of the sharded pipeline when data is
-  already flowing through TPU (batch CLIs).
+  already flowing through the device (batch CLIs).
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ class FullTraceData:
     def close(self):
         # cancel the worker: letting it stream the rest of a multi-GB
         # recording after the browser closed would contend with the new
-        # session on this 1-vCPU host and cache a discarded overview
+        # session for the host's cores and cache a discarded overview
         self._stop.set()
         if self._thread is not None and self._thread.is_alive():
             self._thread.join(timeout=2.0)
@@ -205,7 +205,7 @@ class FullTraceData:
                 # step-aligned ~16 MiB slices so close()'s stop flag is
                 # honored between calls: ONE whole-file native call on a
                 # multi-GB recording (the 11 GB RF64 case) would keep
-                # the C++ read threads hammering the 1-vCPU host's disk
+                # the C++ read threads hammering the host's disk
                 # for the rest of the scan after the session moved on
                 tb = native._TAGS.get(enc)
                 bpf = max(channels * ((tb[1] if tb else 16) // 8), 1)

@@ -102,7 +102,7 @@ def main(cargs=None):
             print("error: no recordings could be opened", file=sys.stderr)
             return 1
         # background-compile the NFFT sweep so the first resolution
-        # keypress never waits on the 10-60 s remote compiles
+        # keypress never waits on its compiles
         shell.current.warm_resolutions_async()
         return run_qt(shell)
 

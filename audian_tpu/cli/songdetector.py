@@ -5,7 +5,7 @@ ConfigFile-driven parameters (same option names, units and doc strings,
 cascade-loaded from the data directories, dumpable with
 ``-c/--save-config``), the same processing pipeline — band-pass ->
 squared envelope -> histogram thresholds -> detection -> per-event
-envelope-frequency refinement — with the dense DSP on TPU, and
+envelope-frequency refinement — with the dense DSP on the device, and
 data-parallel over multiple input files.  Events are written to a CSV
 table (and optionally plotted to PNG; the reference's interactive
 matplotlib viewer lives in :mod:`audian_tpu.gui.songplot`).
@@ -88,7 +88,8 @@ def main(cargs=None):
     parser.add_argument("--mesh", dest="mesh", default=1, type=int,
                         metavar="N",
                         help="shard each recording's time axis over N "
-                        "devices (0 means all; halo exchange over ICI) "
+                        "devices (0 means all; halos exchanged between "
+                        "devices) "
                         "— for recordings much longer than one device's "
                         "memory; combines with -j only trivially (use "
                         "one or the other)")

@@ -1,5 +1,5 @@
 """Host-side data layer: audio I/O, out-of-core loading, and the public
-``Data`` API over the TPU trace graph."""
+``Data`` API over the device trace graph."""
 
 from . import wavio
 from .wavio import (

@@ -885,7 +885,7 @@ def read_frames_raw16(path, start, nframes, out):
     int16 device-upload fast path (`loader.read_raw16_into`): the
     decoded codes ARE the quantized values the device dequantizes as
     ``k / 2**15``, so the float64 decode + re-quantize round trip is
-    skipped (several full host passes on this 1-vCPU host).  Returns
+    skipped (several full host passes).  Returns
     the number of frames read."""
     ff = _open(path)
     if ff.sinfo["bits"] != 16:

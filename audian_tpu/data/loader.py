@@ -6,7 +6,7 @@ or more (concatenated) WAV files that keeps only ``buffer_time`` seconds in
 memory with ``back_time`` seconds retained behind the cursor
 (`src/audian/data.py:17-18,168-174`), loading frames on demand.
 
-The loader is host-side by design — file decode feeds the TPU through
+The loader is host-side by design — file decode feeds the device through
 chunk windows.  Bulk decode can go through the C++ fast path in
 :mod:`audian_tpu.native` when built.
 """
@@ -366,9 +366,8 @@ class AudioLoader:
         nframes = max(0, min(int(nframes), self.frames - offset))
         if offset >= self.offset and offset + nframes <= self.offset + len(self.buffer):
             return  # already covered
-        # recycle the previous window's storage (never-touched pages cost
-        # ~100x on this host — see audian_tpu._tune_host_allocator); the
-        # outgoing buffer becomes the next move's spare, so steady-state
+        # recycle the previous window's storage (first touch of fresh
+        # pages costs a page fault per page); the outgoing buffer becomes the next move's spare, so steady-state
         # scrolling ping-pongs between two warm buffers
         spare = self._spare
         if spare is not None and spare.shape == (nframes, self.channels):

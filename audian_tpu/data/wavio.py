@@ -4,7 +4,7 @@ Self-contained replacement for the audioio functions the reference relies
 on (`load_audio`, `write_audio`, `metadata`, `markers`, `get_datetime`,
 `update_starttime`, `bext_history_str`, `add_history`, `unwrap` — see
 `src/audian/databrowser.py:23-26`, `src/audian/compresseddata.py:17-19`).
-Pure numpy/stdlib on the host (file decode is host work; the TPU consumes
+Pure numpy/stdlib on the host (file decode is host work; the device consumes
 chunk windows).  A C++ fast path for bulk PCM decode + min/max pyramids
 lives in :mod:`audian_tpu.native`.
 

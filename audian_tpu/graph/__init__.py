@@ -1,6 +1,6 @@
 """Lazy, chunked, demand-driven trace DAG — the functional core.
 
-TPU-native redesign of the reference's BufferedData graph
+Device-first redesign of the reference's BufferedData graph
 (`src/audian/data.py`, `src/audian/buffereddata.py`): immutable specs,
 pure node compute functions, host-side geometry, one fused XLA program per
 chunk shape.

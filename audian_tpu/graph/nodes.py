@@ -2,7 +2,7 @@
 
 The reference's node protocol is the mutable ``BufferedData`` subclass
 hierarchy with a ``process(source, dest, nbefore)`` hook writing into a
-shared buffer (`src/audian/buffereddata.py:10-153`).  The TPU-native design
+shared buffer (`src/audian/buffereddata.py:10-153`).  The device-first design
 splits each node into:
 
 - static *geometry*: which source frame range a given output frame range
@@ -180,7 +180,7 @@ class FilterNode(Node):
 
     Reference parity: `src/audian/bufferedfilter.py:9-53` — same default
     cutoffs, same pass-through rule, same 10 s warm-up halo; but the data
-    path is the MXU FIR fast path of :mod:`audian_tpu.ops.sos` and a
+    path is the matmul FIR fast path of :mod:`audian_tpu.ops.sos` and a
     redesign never recompiles (the design is a traced pytree).
     """
 

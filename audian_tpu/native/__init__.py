@@ -2,7 +2,7 @@
 
 Builds the shared library on first use with the system compiler and falls
 back to pure numpy when no compiler is available.  This is host-side code:
-it feeds the TPU and serves the overview/cache path — the analog of the
+it feeds the device and serves the overview/cache path — the analog of the
 compiled code the reference borrows from numpy/scipy/libsndfile (SURVEY.md
 section 2, "Native / accelerated components").
 """
@@ -173,8 +173,8 @@ def ffm_available():
 def ffm_probable():
     """Cheap availability probe for listing calls: True when the FFmpeg
     shim is loaded, already built on disk, or the system libraries are
-    findable — WITHOUT triggering the on-demand g++ build (seconds on
-    this 1-vCPU host; `available_formats` must not stall a dialog).
+    findable — WITHOUT triggering the on-demand g++ build (seconds;
+    `available_formats` must not stall a dialog).
     The encode/decode paths still build lazily on first real use."""
     if _ffm is not None:
         return True

@@ -5,7 +5,7 @@
 // fork-server multiprocessing pool sharing a locked mp.Array
 // (src/audian/compresseddata.py:25-53,104-122).  Here the same work is a
 // small C++ library: lock-free (each thread owns a disjoint block stripe),
-// SIMD-friendly inner loops, called from Python via ctypes.  The TPU never
+// SIMD-friendly inner loops, called from Python via ctypes.  The device never
 // sees this code — it feeds the device and serves the overview/cache path.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -pthread wavio.cc -o libaudianative.so

@@ -1,6 +1,6 @@
-"""TPU compute kernels for audian-tpu.
+"""Device compute kernels for audian-tpu.
 
-Everything here is pure JAX (XLA/Pallas) plus tiny host-side design helpers;
+Everything here is pure JAX (XLA) plus tiny host-side design helpers;
 these kernels replace the reference's scipy/numpy hot paths (see SURVEY.md
 section 2, "Native / accelerated components").
 """

@@ -1,14 +1,14 @@
 """Host-side IIR filter design.
 
 Filter *design* is tiny, data-independent work that belongs on the host
-(numpy/scipy); only the *data path* runs on TPU.  This module wraps
-Butterworth design and precomputes everything the TPU kernels in
+(numpy/scipy); only the *data path* runs on the device.  This module
+wraps Butterworth design and precomputes everything the device kernels in
 :mod:`audian_tpu.ops.sos` need:
 
 - the second-order-section (SOS) cascade coefficients,
 - steady-state initial conditions (``sosfilt_zi`` semantics),
 - the cascade's state-space form and truncated impulse/state responses used
-  by the fast FIR (MXU convolution) execution strategy.
+  by the fast FIR (matmul convolution) execution strategy.
 
 Behavioral contract mirrored from the reference (cited for parity checks,
 not copied): the highpass/lowpass/bandpass/passthrough selection logic of
@@ -216,7 +216,7 @@ def filtfilt_sym_kernel(sos, eps=1e-7, max_len=1 << 20, pad_to=None):
     Forward-then-backward IIR filtering of an (effectively) infinite signal
     equals one convolution with the autocorrelation of the impulse
     response: ``g = h (*) reverse(h)``, length ``2T-1``, group delay
-    ``T-1``.  One MXU pass instead of two plus two reversals — the batch /
+    ``T-1``.  One matmul pass instead of two plus two reversals — the batch /
     sharded envelope fast path.  Edge semantics are those of the
     surrounding halo (interior frames match scipy within ``eps``).
 
@@ -268,7 +268,7 @@ def sos_initial_conditions(sos):
 @dataclasses.dataclass(frozen=True)
 class FilterDesign:
     """Complete host-side design bundle for one SOS filter: everything the
-    TPU data path needs, ready to be fed as traced arguments.
+    device data path needs, ready to be fed as traced arguments.
 
     ``None``-valued designs represent the reference's pass-through filter
     state (`src/audian/bufferedfilter.py:41-42`).
@@ -315,7 +315,7 @@ def ifir_factor(kernel, M=8, Li=None, Lg=None, iters=200):
     IFIR decomposition (Neuvo/Dong/Mitra 1984) replaces it with a short
     full-rate image-suppressor ``i`` followed by the model filter ``g``
     applied at stride ``M`` (zero-stuffed), cutting FLOPs ~4-5x while the
-    TPU executes both factors as dense MXU matmuls (stage 2 on the
+    device executes both factors as dense matmuls (stage 2 on the
     phase-major stream, so the stride never materializes zeros).
 
     Factors are fit to the *given* (already truncated) kernel by

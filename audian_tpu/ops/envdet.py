@@ -6,23 +6,20 @@ zero-phase band-pass, squared-signal envelope, decimation) only ever
 full-rate stream is pulled solely for interactive plots.  The default
 device path (:func:`audian_tpu.analysis.events._band_env_device`) still
 materializes every full-rate intermediate (forward+backward filter
-passes, the squared stream, the smoothed envelope) in HBM before a
-strided gather keeps one sample in ``step``; on a chip where HBM traffic
-is the runtime that is ~3x more DMA than the output needs.
+passes, the squared stream, the smoothed envelope) in device memory
+before a strided gather keeps one sample in ``step``.
 
 This module runs the same math as TWO strided-window matmuls
-(:func:`audian_tpu.ops.pallas.window_matmul.window_matmul`):
+(:func:`audian_tpu.ops.window_matmul.window_matmul`):
 
 1. the zero-phase band-pass as ONE symmetric-kernel convolution
    (``g_bp = h (*) reverse(h)``, :func:`audian_tpu.ops.design.
-   filtfilt_sym_kernel`) over a channels-first stream — reads x
-   (int16-ready), writes the filtered stream once;
+   filtfilt_sym_kernel`) over a channels-first stream (int16-ready);
 2. the envelope low-pass *fused with the squaring and the decimation*:
-   the square runs as the kernel's ``premap`` while windows are built in
-   VMEM, and the decimation is folded into the analysis bank —
-   ``B[r, o] = g_lp[o*step + L-1 - r]`` — so each 128-output frame
-   advances by ``128*step`` samples and ONLY the decimated envelope is
-   ever written to HBM.
+   the square is the window build's ``premap``, and the decimation is
+   folded into the analysis bank — ``B[r, o] = g_lp[o*step + L-1 - r]``
+   — so each 128-output frame advances by ``128*step`` samples and only
+   the decimated envelope is computed.
 
 ``sqrt(2 * e) = 2*sqrt(conv)`` happens on the tiny decimated output.
 
@@ -47,26 +44,22 @@ import jax
 import jax.numpy as jnp
 
 from .design import filtfilt_sym_kernel
+from .raw16 import dequant16
 from .sos import _toeplitz_bank_np
-from .pallas.window_matmul import window_matmul
+from .window_matmul import window_matmul
 
 __all__ = ["EnvDet"]
 
 
 def _dequant(v):
-    """int16 raw-PCM premap (k/2^15, the loader's convention) — applied
-    in VMEM while window blocks are built.  Module-level: a fresh lambda
-    would be a new static cache key per call (see fused._rectify)."""
-    if v.dtype == jnp.int16:
-        return v.astype(jnp.float32) * (1.0 / 32768.0)
-    return v
+    """int16 raw-PCM premap (k/2^15, the loader's convention), applied
+    before the windows are built.  Module-level: a fresh lambda would be
+    a new static cache key per call (see fused._rectify)."""
+    return dequant16(v) if v.dtype == jnp.int16 else v
 
 
 def _square(v):
     return v * v
-
-
-from ..utils import round_up as _round_up
 
 
 def _decimating_bank(g, step, block=128):
@@ -139,12 +132,11 @@ class EnvDet:
     hb : in-window index headroom before the first output — the caller
         guarantees ``off0 >= hb`` and ``hb >= T_lp + T_bp - 1`` (the
         combined symmetric look-back).
-    precision : MXU precision for both convolution stages.  The default
-        HIGHEST keeps the envelope within ~1e-6 of the f64 oracle;
-        ``lax.Precision.DEFAULT`` (one bf16 pass, ~6x fewer MXU cycles)
-        relaxes it to ~1e-3 relative — still far below the
-        signal/noise separation the detection thresholds ride on, so
-        batch jobs chasing throughput can opt in.
+    precision : matmul precision for both convolution stages.  The
+        default HIGHEST keeps the envelope within ~1e-6 of the f64
+        oracle; ``lax.Precision.DEFAULT`` (TF32 on a GPU) relaxes it to
+        ~1e-3 relative — still far below the signal/noise separation the
+        detection thresholds ride on.
     """
 
     def __init__(self, fdesign, edesign, step, nout, hb,
@@ -168,8 +160,7 @@ class EnvDet:
                 f"window headroom hb={hb} is smaller than the envelope "
                 f"look-back ({lead2 - self.d_bp}); widen the halo")
         # device-resident banks, passed as traced args (values rebind
-        # without retracing; host-side np build — an eager device gather
-        # would cost a minutes-long remote compile)
+        # without retracing), built on the host in numpy
         self.w_bp = jnp.asarray(
             _toeplitz_bank_np(g_bp.astype(np.float32), 128).T)
         self.b2 = jnp.asarray(_decimating_bank(g_lp, self.step))

@@ -4,7 +4,7 @@ Reference behavior (`src/audian/bufferedenvelope.py:34-41`): rectify and
 scale by pi/2 (the mean of ``|sin|`` is 2/pi, so a unit-amplitude tone maps
 to a unit envelope), smooth with a zero-phase low/band-pass, and clamp
 negatives to zero in the pure-lowpass case.  Composed entirely from the
-TPU-native SOS kernels, so the whole chain (filter -> rectify -> filtfilt)
+device SOS kernels, so the whole chain (filter -> rectify -> filtfilt)
 fuses into one compiled program.
 """
 

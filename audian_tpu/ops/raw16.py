@@ -7,10 +7,9 @@ with decoding on the host.  The multiply is by an exact power of two,
 so no rounding happens beyond the int→float convert itself.
 
 One definition serves the interactive window mirror
-(`data/data.py`), the chunked graph executor (`graph/executor.py`)
-and the sharded pipeline (`parallel/pipeline.py`); only the Pallas
-chain kernel keeps a private copy inside its kernel body
-(`ops/pallas/chain.py`), where the convert must happen in VMEM.
+(`data/data.py`), the chunked graph executor (`graph/executor.py`),
+the sharded pipeline (`parallel/pipeline.py`) and the batch chain and
+detect envelope (`ops/fused.py`, `ops/envdet.py`).
 """
 
 import jax.numpy as jnp

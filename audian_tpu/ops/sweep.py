@@ -4,7 +4,7 @@ The reference recomputes the spectrogram on the GUI thread every time the
 user steps NFFT (`src/audian/databrowser.py:1188-1222` ->
 `bufferedspectrogram.update`).  Here the whole interactive NFFT/overlap
 sweep (BASELINE.json config 4) is ONE jitted program: every resolution is
-computed in a single device launch (the MXU DFT matmuls for all NFFTs
+computed in a single device launch (the DFT matmuls for all NFFTs
 fuse into one schedule), and dB tiles for the GUI come back quantized.
 Stepping through resolutions then costs one cached re-run, not a
 recompute-and-recompile cascade.

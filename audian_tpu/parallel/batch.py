@@ -3,8 +3,8 @@
 The reference parallelizes batch work with a host multiprocessing pool
 striding blocks of one file (`src/audian/compresseddata.py:104-122`);
 directories of recordings are processed strictly sequentially
-(`songdetector.py:745-771`).  On a TPU slice the natural unit is one
-recording per chip: every file's dense DSP (filter/envelope/spectrogram/
+(`songdetector.py:745-771`).  On a multi-device host the natural unit is
+one recording per device: every file's dense DSP (filter/envelope/spectrogram/
 min-max) is dispatched onto its assigned device, and the host-side event
 logic for different files overlaps with device compute of the others.
 

@@ -1,13 +1,13 @@
 """Mesh-sharded batch song-detection front half.
 
-``audian-songdetector`` scales to pods here: the recording's time axis
+``audian-songdetector`` scales across devices here: the recording's time axis
 is sharded over the ``seq`` mesh axis, each shard extends itself with
-neighbor halos over ICI (:func:`..parallel.shard.halo_exchange` — one
+neighbor halos (:func:`..parallel.shard.halo_exchange` — one
 ``ppermute`` hop per direction) and runs the zero-phase bandpass +
 squared-RMS envelope + decimation locally, so only the decimated
 envelope is ever materialized globally.  This is the data-parallel
 equivalent of the chunked single-device driver
-(`analysis/events._band_env_chunks`) and the TPU-native replacement for
+(`analysis/events._band_env_chunks`) and the device replacement for
 the reference's whole-file scipy pass
 (`/root/reference/songdetector.py:745-767`).
 
@@ -72,7 +72,7 @@ def _program(mesh, L, C, halo, step, fdesign, edesign, dtype):
         ffir, fzi, efir, ezi = params
         ext = halo_exchange(xs, halo, halo, "seq")
         if ext.dtype == jnp.int16:
-            ext = dequant16(ext)  # int16 rode the ICI at half the bytes
+            ext = dequant16(ext)  # int16 moved at half the bytes
         y = sosfiltfilt_fir(ffir, ext, fzi, filt_pad, axis=0)
         e = 2.0 * sosfiltfilt_fir(efir, y * y, ezi, env_pad, axis=0)
         env = jnp.sqrt(jnp.maximum(e, 0.0)) * jnp.sqrt(2.0)

@@ -3,7 +3,9 @@
 The reference's only parallelism is a host multiprocessing pool
 (`src/audian/compresseddata.py:104-122`).  Here parallel execution is laid
 out on a ``jax.sharding.Mesh``: a ``seq`` axis shards long recordings in
-time (halo exchange between neighbors rides the ICI ring), a ``ch`` axis
+time (halos are exchanged between neighbouring shards; the cards of a
+host reach each other all to all, so the mesh follows the algorithm
+alone), a ``ch`` axis
 shards channels, and batch work (directories of recordings) maps over
 whichever axis is free.
 """

@@ -2,9 +2,9 @@
 
 This is the multi-chip path for whole recordings: the time axis is sharded
 across the ``seq`` mesh axis, channels optionally across ``ch``; each shard
-extends itself with neighbor halos over ICI (:func:`halo_exchange`) and
+extends itself with neighbor halos (:func:`halo_exchange`) and
 runs the same fused filter -> envelope / spectrogram chain the single-chip
-executor runs — the TPU-native replacement for the reference's
+executor runs — the device replacement for the reference's
 multiprocess block-strided workers (`src/audian/compresseddata.py:25-53`)
 and the scaling mechanism for hour-scale recordings (SURVEY.md section
 5.7/5.8, BASELINE.json configs 2/3/5).
@@ -116,7 +116,7 @@ class ShardedPipeline:
                 ext = halo_exchange(x, self.hb, self.ha, "seq")
             if ext.dtype == jnp.int16:
                 # raw PCM-16 shards: the halo exchange above moved int16
-                # over the ICI ring at half the f32 bytes; dequantize
+                # between devices at half the f32 bytes; dequantize
                 # once here, shard-locally
                 ext = dequant16(ext)
                 x = ext[self.hb : self.hb + L]
@@ -176,7 +176,7 @@ class ShardedPipeline:
         """
         x = jnp.asarray(x)
         if x.dtype != jnp.int16:
-            # int16 stays int16 (raw PCM-16 fast path: half the ICI/HBM
+            # int16 stays int16 (raw PCM-16 fast path: half the transfer
             # bytes, dequantized shard-locally inside the program);
             # everything else casts to the pipeline dtype
             x = x.astype(self.dtype)

@@ -3,7 +3,7 @@
 The reference's chunk-overlap protocol re-reads halo samples from the
 source buffer on the host (`src/audian/buffereddata.py:91-109`).  Sharded
 across devices, the same halos are fetched from the *neighbor shard* with
-``jax.lax.ppermute`` — one neighbor hop over ICI per direction, the direct
+``jax.lax.ppermute`` — one neighbor hop per direction, the direct
 analog of ring attention's neighbor exchange (SURVEY.md section 5.7).
 """
 

@@ -42,9 +42,9 @@ class BlockPrefetcher:
         self.read_ahead = int(read_ahead)
         self._cache = OrderedDict()  # block index -> np array
         self._bytes = 0
-        # retired full-size block buffers for reuse: never-touched pages
-        # cost ~100x on this host (see audian_tpu._tune_host_allocator),
-        # so bounding the set of distinct block buffers matters
+        # retired full-size block buffers for reuse: first touch of fresh
+        # pages costs a page fault per page, so bounding the set of
+        # distinct block buffers matters
         self._free = []
         self._dtype = np.dtype(getattr(source, "dtype", np.float32))
         # sources that take out= (AudioLoader's raw path) decode straight

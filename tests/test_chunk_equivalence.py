@@ -165,9 +165,9 @@ def test_spectrogram_frames_align_with_absolute_grid(recording):
 
 
 def test_chain_kernel_chunked_equals_whole(rng):
-    """The single-pass fused kernel (ops/pallas/chain.py) gives identical
-    results whether a recording is processed whole or in halo-extended
-    chunks — the batch path's load-bearing invariant."""
+    """The one-program batch chain (``FusedChainCF.chain_cf``) gives
+    identical results whether a recording is processed whole or in
+    halo-extended chunks — the batch path's load-bearing invariant."""
     import jax.numpy as jnp
     from audian_tpu.ops import design_filter, design_envelope_filter
     from audian_tpu.ops.fused import FusedChainCF
@@ -177,7 +177,7 @@ def test_chain_kernel_chunked_equals_whole(rng):
                          filt_sos=design_filter(rate, 1000.0, 8000.0),
                          env_sos=design_envelope_filter(rate, 500.0),
                          nfft=256, hop=128, eps=1e-6)
-    ck = chain.chain_kernel
+    ck = chain
     n = 8192
     chunk = 4096
     x = rng.standard_normal((2, ck.hb + n + ck.ha)).astype(np.float32)

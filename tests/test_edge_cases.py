@@ -6,7 +6,7 @@ import scipy.signal as sps
 
 from audian_tpu.ops import (design_filter, fir_kernels, sosfilt, sosfilt_fir,
                             spectrogram, minmax_interleaved)
-from audian_tpu.ops.pallas.window_matmul import window_matmul
+from audian_tpu.ops.window_matmul import window_matmul
 from audian_tpu.data import Data, default_traces, wavio
 from audian_tpu.graph import (TraceGraph, TraceSpec, GraphExecutor,
                               FilterNode, SpectrogramNode)
@@ -61,11 +61,8 @@ def test_window_matmul_single_frame():
 
 def test_window_matmul_odd_geometries(rng):
     """Non-pow2 hops / kernel rows / output widths (90 % overlap
-    spectrograms, truncated banks): the block geometry stays
-    Mosaic-lane-aligned — G*S, the halo span, and the padded K are all
-    128-multiples on device — while matching the dense float64 oracle;
-    odd-O cf layouts route through the fco kernel plus one transpose
-    (the cf relayout needs lane-aligned O)."""
+    spectrograms, truncated banks, K not a multiple of S) match the
+    dense float64 oracle in both layouts."""
     for S, K, O, layout in ((26, 256, 129, "fco"), (20, 250, 65, "fco"),
                             (32, 64, 32, "cf"), (90, 512, 129, "cf"),
                             (7, 130, 17, "fco")):

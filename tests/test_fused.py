@@ -1,5 +1,4 @@
-"""Fused channels-first Pallas chain vs scipy oracles (interpret mode on
-the CPU mesh; the same code compiles to Mosaic on TPU)."""
+"""Fused channels-first chain vs scipy oracles and its own stages."""
 
 import numpy as np
 import pytest
@@ -96,20 +95,18 @@ def test_ifir_odd_length_stream(signal):
 
 
 def test_single_pass_chain_matches_stages(chain, signal):
-    """The one-HBM-pass fused kernel (ops/pallas/chain.py) produces the
-    same filtered/envelope/PSD values as the per-stage path."""
+    """The one-program chain (``chain_cf``) produces the same
+    filtered/envelope/PSD values as the per-stage path."""
     import jax.numpy as jnp
 
-    ck = chain.chain_kernel
-    assert ck is not None
+    assert chain.hb is not None
     C, n_all = signal.shape
     n = 2048  # output region, a multiple of 128
     x = jnp_array(signal)
-    # extended stream for the fused kernel
-    x_ext = jnp.pad(x, [(0, 0), (ck.hb, 0)])
+    # extended stream for the one-program chain
+    x_ext = jnp.pad(x, [(0, 0), (chain.hb, 0)])
     y1, e1, s1 = chain.chain_cf(x_ext, n)
     # per-stage oracle over the same stream semantics
-    hb = ck.hb
     y_ref = np.asarray(chain.filtered_cf(x))
     e_ref = np.asarray(chain.envelope_cf(jnp_array(y_ref)))
     s_ref = np.asarray(chain.spectrogram_fc(jnp_array(y_ref),
@@ -134,15 +131,16 @@ def test_full_chain_shapes(chain, signal):
 
 @pytest.mark.parametrize("nfft,ch", [(512, 4), (128, 1)])
 def test_single_pass_chain_geometries(rng, nfft, ch):
-    """The fused kernel handles other NFFT buckets and channel counts."""
+    """The one-program chain handles other NFFT buckets and channel
+    counts."""
     import jax.numpy as jnp
 
     chain = FusedChainCF(RATE,
                          filt_sos=design_filter(RATE, 1000.0, 8000.0),
                          env_sos=design_envelope_filter(RATE, 500.0),
                          nfft=nfft, hop=128, eps=1e-6)
-    ck = chain.chain_kernel
-    assert ck is not None
+    ck = chain
+    assert ck.hb is not None
     n = 1024
     x = jnp.asarray(rng.standard_normal(
         (ch, ck.hb + n + ck.ha)).astype(np.float32))
@@ -157,13 +155,13 @@ def test_single_pass_chain_geometries(rng, nfft, ch):
     np.testing.assert_allclose(np.asarray(s), s_ref, rtol=1e-4, atol=1e-9)
 
 
-@pytest.mark.parametrize("n", [2048, 1920])  # exact grid and padded tail
+@pytest.mark.parametrize("n", [2048, 1920, 1000])
 def test_single_pass_chain_stats(chain, rng, n):
-    """In-kernel chunk statistics equal reductions of the full outputs,
-    including when the grid is padded past ``n``."""
+    """Chunk statistics equal reductions of the full outputs, including
+    when ``n`` is not a multiple of the filter block."""
     import jax.numpy as jnp
 
-    ck = chain.chain_kernel
+    ck = chain
     x = jnp.asarray(rng.standard_normal(
         (2, ck.hb + n + ck.ha)).astype(np.float32))
     y, e, s, st = chain.chain_cf(x, n, stats=True)
@@ -178,105 +176,13 @@ def test_single_pass_chain_stats(chain, rng, n):
                                rtol=1e-5, atol=1e-9)
 
 
-def test_mixed_precision_split_is_live_and_tight(chain, signal):
-    """The default per-stage precision runs the 3-pass bf16 split on the
-    envelope/PSD stages.  Against an all-HIGHEST kernel the filtered
-    stream must be identical (same HIGHEST passes) while envelope and
-    PSD differ by a tiny but NONZERO amount — exact equality would mean
-    the hi/lo bf16 split got constant-folded back into plain dots (the
-    XLA simplifier does exactly that outside Pallas, see
-    docs/performance.md), silently degrading device accuracy to
-    DEFAULT's ~3.6e-3."""
-    from jax import lax
-    from audian_tpu.ops.pallas.chain import FusedChainKernel
-
-    ck = chain.chain_kernel
-    assert ck.precision == FusedChainKernel.DEFAULT_PRECISION
-    hi = FusedChainKernel(
-        RATE, chain._h_filt, chain._g_env, chain.env_delay,
-        np.asarray(chain.spec_w), chain.nbins,
-        env_clamp=chain.env_clamp, nfft=chain.nfft,
-        precision=lax.Precision.HIGHEST)
-    assert hi.hb == ck.hb and hi.ha == ck.ha
-    C, n = signal.shape
-    x = jnp_array(np.pad(signal, [(0, 0), (ck.hb, ck.ha)]))
-    n_out = n - (n % 128) or 128
-    y1, e1, s1 = ck(x, n_out)
-    y2, e2, s2 = hi(x, n_out)
-    np.testing.assert_array_equal(np.asarray(y1), np.asarray(y2))
-    de = np.abs(np.asarray(e1) - np.asarray(e2)).max()
-    ds = np.abs(np.asarray(s1) - np.asarray(s2)).max()
-    assert 0 < de < 1e-5, de   # split live (nonzero) and inside budget
-    assert 0 < ds < 1e-6, ds
-
-
-def test_active_block_mass_classification():
-    """`FusedChainKernel._active` drops all-zero bank sub-blocks and
-    flags the lightest blocks (full=False) while their AGGREGATE L1
-    mass stays under LIGHT_MASS_FRAC of the bank total; heavy blocks
-    stay full."""
-    from audian_tpu.ops.pallas.chain import FusedChainKernel
-
-    bank = np.zeros((512, 128), np.float32)
-    bank[130:250] = 1.0            # block 1: heavy
-    bank[260] = 1e-5               # block 2: light tail
-    # block 0 and 3 all-zero: dropped entirely
-    act = FusedChainKernel._active(bank)
-    assert act == ((1, True), (2, False))
-
-    # many tails each under the per-block threshold must NOT all go
-    # light: the budget is aggregate, so only the smallest fit under it.
-    # Bulk mass ~49152 -> budget ~49.2; tails of mass 32 each (6.5e-4 of
-    # the total individually) sum to 96 — greedy admits exactly one.
-    bank = np.zeros((8 * 128, 128), np.float32)
-    bank[0 * 128] = 1e-4               # tiny tail: mass 0.0128
-    bank[1 * 128] = 0.25               # three near-threshold tails...
-    bank[2 * 128] = 0.25
-    bank[3 * 128] = 0.25
-    bank[4 * 128 : 7 * 128] = 1.0      # heavy bulk
-    act = FusedChainKernel._active(bank)
-    flags = dict(act)
-    assert flags[0] is False
-    assert sum(not flags[k] for k in (1, 2, 3)) == 1
-    assert flags[4] and flags[5] and flags[6]
-
-
-def test_bf16x4_filter_tightens_the_x3_split(chain, signal):
-    """The 4-pass split mode (BF16X4) keeps the lo*lo cross product the
-    3-pass mode drops: against an all-HIGHEST filter it must land at
-    least as close as BF16X3 does, and both stay inside the 1e-5
-    budget (on-device measurements: x3 ~1e-5, x4 ~5.8e-6, HIGHEST
-    ~1e-7 — see chain.py's precision ladder notes)."""
-    from jax import lax
-    from audian_tpu.ops.pallas.chain import (FusedChainKernel, BF16X3,
-                                             BF16X4)
-
-    def mk(prec_f):
-        return FusedChainKernel(
-            RATE, chain._h_filt, chain._g_env, chain.env_delay,
-            np.asarray(chain.spec_w), chain.nbins,
-            env_clamp=chain.env_clamp, nfft=chain.nfft,
-            precision=(prec_f, BF16X3, BF16X3))
-
-    C, n = signal.shape
-    ck = chain.chain_kernel
-    x = jnp_array(np.pad(signal, [(0, 0), (ck.hb, ck.ha)]))
-    n_out = n - (n % 128) or 128
-    y_hi = np.asarray(mk(lax.Precision.HIGHEST)(x, n_out)[0])
-    d3 = np.abs(np.asarray(mk(BF16X3)(x, n_out)[0]) - y_hi).max()
-    d4 = np.abs(np.asarray(mk(BF16X4)(x, n_out)[0]) - y_hi).max()
-    assert 0 < d3 < 1e-5, d3
-    assert d4 <= d3, (d4, d3)
-
-
 def test_single_pass_chain_int16_input(chain, signal):
-    """int16 (raw PCM-16) input is dequantized inside the kernel with the
+    """int16 (raw PCM-16) input is dequantized on the device with the
     loader's k/2^15 convention and gives exactly the same outputs as
-    feeding the dequantized float32 stream (half the HBM read bytes on a
-    DMA-bound chain — docs/performance.md)."""
+    feeding the dequantized float32 stream (half the upload bytes)."""
     import jax.numpy as jnp
 
-    ck = chain.chain_kernel
+    ck = chain
     n = 2048
     x = jnp.pad(jnp_array(signal), [(0, 0), (ck.hb, 0)])
     q = jnp.clip(jnp.round(x * 32768.0), -32768, 32767).astype(jnp.int16)
@@ -291,13 +197,13 @@ def test_single_pass_chain_int16_input(chain, signal):
 def test_single_pass_chain_output_mask(chain, signal):
     """The static ``outputs`` mask returns exactly the requested stages
     with values identical to the full chain (masked positions are None,
-    their stats report zero) — the DMA-traffic lever for batch consumers
-    that need only one output (e.g. envelope-only song detection)."""
+    their stats report zero) — batch consumers that need only one output
+    skip the other stages."""
     import itertools
 
     import jax.numpy as jnp
 
-    ck = chain.chain_kernel
+    ck = chain
     n = 2048
     x = jnp.pad(jnp_array(signal), [(0, 0), (ck.hb, 0)])
     y0, e0, s0, st0 = chain.chain_cf(x, n, stats=True)
@@ -327,8 +233,7 @@ def test_single_pass_chain_output_mask(chain, signal):
 def test_chain_output_mask_rejects_bad_names(chain, signal):
     import jax.numpy as jnp
 
-    ck = chain.chain_kernel
-    x = jnp.zeros((2, ck.hb + 256), jnp.float32)
+    x = jnp.zeros((2, chain.hb + 256), jnp.float32)
     with pytest.raises(ValueError, match="outputs"):
         chain.chain_cf(x, 128, outputs=("psd",))
     with pytest.raises(ValueError, match="outputs"):
@@ -342,3 +247,55 @@ def test_fused_call_output_mask(chain, signal):
     assert set(env_only) == {"envelope"}
     np.testing.assert_array_equal(np.asarray(env_only["envelope"]),
                                   np.asarray(full["envelope"]))
+
+
+@pytest.mark.parametrize("outputs", [
+    ("filtered",), ("envelope",), ("spectrogram",),
+    ("filtered", "envelope"), ("filtered", "spectrogram"),
+    ("envelope", "spectrogram"),
+    ("filtered", "envelope", "spectrogram")])
+@pytest.mark.parametrize("hop", [128, 64])
+def test_chain_cf_matches_stage_composition(rng, outputs, hop):
+    """``chain_cf`` under every output mask equals the per-stage methods
+    composed over the same extended stream, and its stats equal
+    reductions of those stage outputs (zero for masked stages)."""
+    import jax.numpy as jnp
+
+    chain = FusedChainCF(RATE,
+                         filt_sos=design_filter(RATE, 1000.0, 8000.0),
+                         env_sos=design_envelope_filter(RATE, 500.0),
+                         nfft=256, hop=hop, eps=1e-6)
+    n = 1536
+    x = rng.standard_normal((2, chain.hb + n + chain.ha)).astype(np.float32)
+    *vals, st = chain.chain_cf(jnp.asarray(x), n, stats=True,
+                               outputs=outputs)
+    y_full = np.asarray(chain.filtered_cf(jnp.asarray(x)))
+    lead = chain.hb - chain.filt_halo
+    y_ref = y_full[:, chain.hb : chain.hb + n]
+    # envelope of the stream that starts lead samples early, cropped
+    e_ref = np.asarray(chain.envelope_cf(
+        jnp.asarray(y_full[:, chain.filt_halo :])))[:, lead : lead + n]
+    s_ref = np.asarray(chain.spectrogram_fc(
+        jnp.asarray(y_full[:, chain.hb :]), nframes=n // hop))
+    refs = {"filtered": y_ref, "envelope": e_ref, "spectrogram": s_ref}
+    names = ("filtered", "envelope", "spectrogram")
+    stat_of = {"filtered": ("power", lambda v: np.sum(v * v, axis=1)),
+               "envelope": ("env_sum", lambda v: np.sum(v, axis=1)),
+               "spectrogram": ("psd_sum", lambda v: np.sum(v, axis=0))}
+    for name, val in zip(names, vals):
+        key, reduce = stat_of[name]
+        if name not in outputs:
+            assert val is None
+            assert not np.any(np.asarray(st[key]))
+            continue
+        got = np.asarray(val)
+        assert got.shape == refs[name].shape, name
+        if name == "spectrogram":
+            np.testing.assert_allclose(got, refs[name], rtol=1e-4,
+                                       atol=1e-9)
+        else:
+            # the envelope reference's right edge sees zero padding past
+            # the extended stream only beyond n + delay: none inside n
+            np.testing.assert_allclose(got, refs[name], atol=2e-6)
+        np.testing.assert_allclose(np.asarray(st[key]), reduce(got),
+                                   rtol=1e-5, atol=1e-6)

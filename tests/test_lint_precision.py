@@ -1,7 +1,7 @@
-"""Repo lint: every MXU-bound matmul must pass an explicit precision.
+"""Repo lint: every device matmul must pass an explicit precision.
 
-On TPU the default f32 matmul runs one bf16 pass (~3.6e-3 relative
-error), and the CPU test mesh cannot see it — a bare ``a @ b`` on a
+On a GPU a float32 matmul without a precision may run in TF32 (about
+three decimal digits), and the CPU test mesh cannot see it — a bare ``a @ b`` on a
 traced path ships a silent numerics regression that only an on-chip
 test can catch (it happened: the FIR state matmuls in ``ops/sos.py``
 carried ~3e-3 into the scipy-exact edge samples until
@@ -56,7 +56,7 @@ def test_every_matmul_carries_explicit_precision():
     for path in sorted(PKG.rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         if not _imports_jax(tree):
-            continue  # host-side numpy module: MXU precision n/a
+            continue  # host-side numpy module: device precision n/a
         rel = path.relative_to(PKG.parent)
         if str(rel) in _HOST_SIDE:
             continue

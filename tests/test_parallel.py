@@ -375,7 +375,7 @@ def test_map_files_sequential_continues_after_error():
 
 def test_halo_exchange_lowers_to_collective_permute():
     """The sequence-sharded halo exchange must lower to neighbor
-    collective-permute ops (the ICI ring of SURVEY.md section 5.7), not
+    collective-permute ops (the neighbour ring of SURVEY.md section 5.7), not
     to all-gathers that would move whole shards."""
     mesh = make_mesh(seq=8, ch=1)
     fn = jax.jit(jax.shard_map(

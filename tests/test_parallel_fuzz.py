@@ -4,7 +4,7 @@
 splits of the default geometry.  This fuzzer samples random
 (seq × ch) meshes, rates, channel counts, recording lengths, cutoffs,
 and spectrogram/minmax geometries, and asserts every output of
-:class:`ShardedPipeline` against scipy float64 oracles — the ICI
+:class:`ShardedPipeline` against scipy float64 oracles — the
 halo-exchange analog of the DAG-shape fuzzer.  Configs whose halo
 exceeds the per-shard length are expected to raise the documented loud
 error and are skipped.

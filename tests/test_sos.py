@@ -88,7 +88,7 @@ def test_sosfilt_f32_tolerance(sos, signal):
 
 
 def test_sosfilt_fir_f32_production_accuracy(sos, signal):
-    """The production (FIR/MXU) path stays within 1e-5 of the float64
+    """The production (FIR matmul) path stays within 1e-5 of the float64
     scipy oracle even in float32 — the BASELINE.md numerical target."""
     k = fir_kernels(sos, eps=1e-9)
     got = np.asarray(sosfilt_fir(k, signal.astype(np.float32)))

@@ -115,8 +115,7 @@ def test_prefetch_overlaps_read_with_compute():
     # pf.hits counts blocks the background thread had fetched BEFORE the
     # foreground asked — a hit IS the overlap property (the read happened
     # during the compute sleep).  No wall-clock assertions: both per-step
-    # latency thresholds and total-wall bounds flaked under CI load on
-    # this 1-vCPU host.
+    # latency thresholds and total-wall bounds flaked under CI load.
     assert pf.hits >= nsteps - 2, f"only {pf.hits} read-ahead hits"
 
 
@@ -165,7 +164,7 @@ def test_read_into_matches_read_without_alias():
 
 def test_block_buffer_freelist_recycles_only_unreferenced():
     """Evicted block storage is reused (bounding the process's unique
-    first-touch footprint — see audian_tpu._tune_host_allocator), but
+    first-touch footprint), but
     never while a caller still holds a read() view of it."""
 
     class OutSource(FakeSource):
